@@ -1,15 +1,18 @@
 # Developer entry points (the reference ships build.sh/run.sh; this is the
-# Python/TPU equivalent).
+# Python/JAX equivalent).
 
-.PHONY: test test-fast bench bench-build native serve serve-noop clean
+.PHONY: test test-fast smoke bench bench-build native serve serve-noop clean
 
 test:
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q
 
 test-fast:
-	python -m pytest tests/ -q -x
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q -x
 
-bench:            ## headline 1Mx768 benchmark on the TPU (~15 min)
+smoke:            ## the served path on one GPU, 1Mx768 (chip_smoke.py)
+	python chip_smoke.py --seed 0
+
+bench:            ## 1Mx768 QPS-at-recall benchmark on the GPU
 	python bench.py
 
 bench-build:      ## 10Mx768 -> 4096-centroid build benchmark (~25 min)

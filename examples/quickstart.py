@@ -27,7 +27,7 @@ def main():
         "demo",
         "articles",
         [
-            {"name": "intro", "document": {"title": "Hello", "body": "vector search on TPUs"}},
+            {"name": "intro", "document": {"title": "Hello", "body": "vector search on GPUs"}},
             {"name": "deep", "document": {"title": "IVF", "body": "clustered inverted file index"}},
         ],
     )

@@ -165,10 +165,10 @@ print("MULTIPROCESS_OK", pid, flush=True)
 
 
 def test_main_import_leaves_distributed_init_possible(tmp_path):
-    """Importing main must not start the device-touching warm-up thread:
-    jax.distributed.initialize refuses to run once any XLA backend is
-    initialized, so a mesh.coordinator deployment must still be able to
-    init AFTER import (regression: warm_device_transfer at import time)."""
+    """Importing main must not touch a device: jax.distributed.initialize
+    refuses to run once any XLA backend is initialized, so a
+    mesh.coordinator deployment must still be able to init AFTER
+    import."""
     import os
     import socket
 
@@ -183,8 +183,6 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, sys.argv[1])
 import main  # noqa: F401  (must not touch a device)
-from vectorsearch_tpu.utils import profiling
-assert profiling._WARM_THREAD is None, "warm thread started at import"
 from vectorsearch_tpu.parallel.distributed import maybe_initialize
 assert maybe_initialize(sys.argv[2], num_processes=1, process_id=0)
 assert jax.process_count() == 1

@@ -1,6 +1,6 @@
 """CPU proxy of the reference's divide-and-conquer index builder.
 
-BASELINE.md row 4 demands the TPU builder be >=10x faster than the Go
+BASELINE.md row 4 demands the device builder be >=10x faster than the Go
 builder, but this image has NO Go toolchain (no go, no gccgo frontend) and
 no network to fetch one, so the reference cannot be compiled. This proxy
 reimplements `dnc.KMeansDivideAndConquer` faithfully in numpy — same

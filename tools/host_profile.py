@@ -10,8 +10,8 @@ per-request Python cost was never split. This tool measures the layers:
   2. the HTTP layer on top: aiohttp handler + JSON + socket, measured as
      (sequential HTTP latency) - (in-process latency) on the same corpus.
 
-Runs hermetically on CPU by default (VSTPU_HOSTPROF_TPU=1 to use the
-default platform — do not run alongside another TPU process). The corpus
+Runs hermetically on CPU by default (VSTPU_HOSTPROF_DEVICE=1 to use the
+default platform — one process per card). The corpus
 is synthetic at VSTPU_HOSTPROF_N rows (default 50k: big enough that the
 dispatch is visible, small enough to boot in seconds).
 """
@@ -26,7 +26,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("VSTPU_HOSTPROF_TPU") != "1":
+if os.environ.get("VSTPU_HOSTPROF_DEVICE") != "1":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -205,7 +205,7 @@ def main():
     conn.request("POST", "/api/search", body)
     conn.getresponse().read()
     # bracket the HTTP loop with fresh in-process passes: the device-side
-    # scan keeps warming across the run (CPU cache / tunnel state), so the
+    # scan keeps warming across the run (caches, allocator state), so the
     # first in-process figure from minutes ago is not a valid baseline —
     # the negative-overhead artifact of the unbracketed version
     pre_ms = inproc_pass()

@@ -1,4 +1,4 @@
-"""TPU-native vector search framework.
+"""Vector search framework on JAX/XLA/Pallas for NVIDIA GPUs.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 expki/go-vectorsearch: 1-byte affine-quantized embeddings, exact and
@@ -8,8 +8,8 @@ embedding providers.
 
 Layers (bottom-up; see SURVEY.md §7):
   quant/     wire-compatible u8 codec + int8 device layout
-  kernels/   cosine top-k scan kernels (jnp reference + fused Pallas)
-  index/     HBM-resident flat + IVF packed-bucket indexes
+  kernels/   cosine top-k scan kernels (jnp) + grouped IVF bucket scan (Pallas)
+  index/     device-resident flat + IVF packed-bucket indexes
   build/     sharded Lloyd's k-means centroid builder
   parallel/  device mesh, shard_map scans, top-k merge
   store/     SQLite persistence + versioned array snapshots

@@ -1,7 +1,7 @@
 """Engine tuning constants.
 
 Mirrors the reference's compile-time constants (reference:
-config/constants.go:5-19) with TPU-appropriate additions. The reference bakes
+config/constants.go:5-19) with additions for the device index. The reference bakes
 these into the binary; we keep them module-level so tests can monkeypatch.
 """
 
@@ -21,10 +21,11 @@ CACHE_CLEANUP_S = 15.0           # background sweep interval
 # HTTP client recycling (config/constants.go:18).
 HTTP_CLIENT_MAX_REQUESTS = 500
 
-# --- TPU-native additions (no reference equivalent) ---
+# --- Additions for the device index (no reference equivalent) ---
 
 # Cluster bucket capacities are rounded up to a multiple of this so XLA sees a
-# small set of static shapes (MXU sublane granularity for int8 is 32).
+# small set of static shapes (and the scan kernel's power-of-two tiles
+# divide it).
 BUCKET_ROUND = 1_024
 
 # Default max queries per device batch for the serving path.

@@ -14,13 +14,15 @@ from __future__ import annotations
 import random
 import threading
 from contextlib import contextmanager
+from typing import TYPE_CHECKING
 from urllib.parse import urljoin
-
-import requests
 
 from .. import constants
 from .base import AIError
 from ..store.db import HAVE_ZSTD, compress, decompress
+
+if TYPE_CHECKING:
+    import requests
 
 
 class SessionManager:
@@ -28,10 +30,14 @@ class SessionManager:
 
     def __init__(self, max_requests: int | None = None):
         self._lock = threading.Lock()
-        self._sessions: dict[str, tuple[requests.Session, int]] = {}
+        self._sessions: dict[str, tuple["requests.Session", int]] = {}
         self._max = max_requests or constants.HTTP_CLIENT_MAX_REQUESTS
 
-    def get(self, host: str) -> requests.Session:
+    def get(self, host: str) -> "requests.Session":
+        # imported here: an engine with no HTTP embedding provider (NoopAI,
+        # a fixed-vector embedder) must not need the package at all
+        import requests
+
         with self._lock:
             sess, used = self._sessions.get(host, (None, 0))
             if sess is None or used >= self._max:

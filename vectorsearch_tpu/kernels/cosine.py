@@ -12,9 +12,9 @@ with centered int8 codes c and an L2-normalized query x,
 
     cos(x, v) = (scale * <x, c> + offset * sum(x)) * inv_norm
 
-The corpus-side contraction <x, c> runs with an int8 operand on the MXU; the
-query is symmetrically quantized to int8 (per-row scale max|x|/127) so the
-matmul is a native s8 x s8 -> s32 MXU op. The offset term uses the exact f32
+The corpus-side contraction <x, c> runs with an int8 operand; the query is
+symmetrically quantized to int8 (per-row scale max|x|/127) so the matmul is
+an s8 x s8 -> s32 product (an int8 GEMM on the GPU's tensor cores). The offset term uses the exact f32
 query sum, so query quantization only perturbs the <x, c> term by ~0.4%.
 
 Semantics parity notes:
@@ -64,7 +64,7 @@ def scores_int8(
     corpus: PackedVectors,
 ) -> jax.Array:
     """Cosine scores [B, N] from int8 query codes against a packed corpus."""
-    # s8 x s8 -> s32 on the MXU.
+    # s8 x s8 -> s32 product.
     dots = jax.lax.dot_general(
         q_codes,
         corpus.codes,
@@ -139,15 +139,11 @@ def scan_topk(
 
     Processes the corpus in `chunk`-row tiles under `lax.scan`, carrying a
     [B, k] running best set, so the [B, N] score matrix is never
-    materialized in HBM. This is the XLA-level replacement for the
-    reference's 1000-row SQL FindInBatches hot loop
-    (server/search.go:241-273); the Pallas kernel in
-    kernels/pallas_scan.py fuses the same computation tighter.
+    materialized in device memory. This is the XLA-level replacement for
+    the reference's 1000-row SQL FindInBatches hot loop
+    (server/search.go:241-273).
 
-    approx=True uses jax.lax.approx_max_k for the per-chunk reduction —
-    the TPU's native approximate top-k unit. Measured on v5e at 1Mx768,
-    B=128: 7.0ms vs 12.3ms exact with identical recall@10 (the recall
-    floor is the corpus quantization, not the reduction). Use for serving;
+    approx=True uses jax.lax.approx_max_k for the per-chunk reduction;
     keep exact for oracles.
     """
     n = corpus.n
@@ -325,7 +321,7 @@ def rescore_topk(
     """Exact re-rank of candidate rows: gather the m candidates per query,
     score them against the UNQUANTIZED f32 query, and take top-k.
 
-    The coarse scan quantizes the query to int8 for the MXU; its only
+    The coarse scan quantizes the query (int8 or bf16); its only
     recall loss vs the stored corpus is that query rounding. Re-scoring
     the top-m with the f32 query removes it: m x D gathers per query are
     tiny next to the corpus scan (the retrieval analogue of a reranker).
@@ -337,8 +333,8 @@ def rescore_topk(
     scale_g = jnp.take(corpus.scale, safe)  # [B, m]
     offset_g = jnp.take(corpus.offset, safe)
     inv_g = jnp.take(corpus.inv_norm, safe)
-    # precision=HIGHEST: this env defaults matmuls to bf16-class even for
-    # f32 operands (CLAUDE.md), which would round the query inside the dot
+    # precision=HIGHEST: f32 matmuls may otherwise run in TF32 or
+    # bf16-class passes, which would round the query inside the dot
     # and defeat the exact-f32 re-rank this function exists for; m << the
     # corpus, so the f32 passes are ~free
     dots = jnp.einsum(

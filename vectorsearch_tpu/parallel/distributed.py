@@ -1,13 +1,13 @@
-"""Multi-host distributed runtime (SURVEY.md §2.8 last row).
+"""Multi-process distributed runtime (SURVEY.md §2.8 last row).
 
 The reference's only cross-process fabric is HTTP plus a shared SQL
-database; the TPU-native equivalent inside a pod slice is
-`jax.distributed.initialize` + ICI collectives, with DCN across slices.
-This module is the initialization seam: every process of a multi-host
-deployment calls `maybe_initialize` before first device use, after which
-`jax.devices()` is the GLOBAL device list and `global_mesh()` spans all
-hosts — `shard_map` programs (parallel/sharded.py, build/kmeans.py) run
-unchanged over it, with psum/all_gather riding ICI.
+database; the equivalent here is `jax.distributed.initialize` +
+collectives (NCCL between GPUs). This module is the initialization seam:
+every process of a multi-process deployment calls `maybe_initialize`
+before first device use, after which `jax.devices()` is the GLOBAL device
+list and `global_mesh()` spans all processes — `shard_map` programs
+(parallel/sharded.py, build/kmeans.py) run unchanged over it. Each process
+opens only its own cards (`local_device_ids`, config.MeshConfig)
 
 Host-side array placement must go through `put_sharded` (not bare
 `jax.device_put`): on a multi-host mesh a process can only address its
@@ -22,11 +22,9 @@ Config wiring (config.py MeshConfig → main.py): set
 `mesh.process_id` on every instance. Single-host deployments skip all of
 this (coordinator empty → no-op).
 
-One real chip is the most this environment offers, so multi-HOST runs
-here are exercised with num_processes=1 (the full initialize → global
-mesh → sharded-search path, tests/test_distributed.py) and multi-DEVICE
-semantics with the 8-device virtual CPU mesh; the driver's
-dryrun_multichip covers the compile path at N devices.
+tests/test_distributed.py runs the initialize → global mesh →
+sharded-search path in one and in two processes on the CPU; multi-DEVICE
+semantics are covered by the 8-device virtual CPU mesh.
 """
 from __future__ import annotations
 

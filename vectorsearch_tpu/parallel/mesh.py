@@ -2,9 +2,9 @@
 
 The reference scales reads with Postgres read replicas behind strict
 round-robin (database/database.go:86-103) and coordinates multi-instance
-builds with row locks (server/centroids.go:33-52). The TPU-native
-equivalents (SURVEY.md §2.8): a 1-D 'data' mesh whose devices hold corpus
-shards, ICI collectives for cross-shard top-k merges, and single-writer
+builds with row locks (server/centroids.go:33-52). The equivalents here
+(SURVEY.md §2.8): a 1-D 'data' mesh whose devices hold corpus shards,
+collectives for cross-shard top-k merges, and single-writer
 index builds whose results are swapped in atomically.
 """
 from __future__ import annotations

@@ -2,11 +2,11 @@
 
 The reference dequantizes every SQL batch to float64 before scoring
 (reference: compute/compute.go:32-44) — the single biggest inefficiency in
-its hot loop. Here the corpus stays quantized in HBM and is scored directly
-on the MXU:
+its hot loop. Here the corpus stays quantized in device memory and is
+scored directly:
 
   wire code  q  in [0,255]      (uint8, v = min + (q/255)(max-min))
-  stored     c  = q - 128       (int8 — fits the MXU's s8 operand range)
+  stored     c  = q - 128       (int8 — a signed s8 matmul operand)
   affine     v  = offset + scale * c
              scale  = (max - min) / 255
              offset = min + 128 * scale

@@ -18,7 +18,7 @@ The DB is the durable source of truth (SURVEY.md §5: "the database is the
 checkpoint"); HBM indexes are rebuilt from it at boot or restored from the
 array snapshots in store/snapshots.py. Postgres (with read-replica routing,
 database/database.go:86-103) is represented by the same interface but gated
-on a driver being present; the TPU-native scale-out path is sharded device
+on a driver being present; the device-side scale-out path is sharded device
 replicas (parallel/sharded.py), not SQL replicas.
 """
 from __future__ import annotations

@@ -1,18 +1,16 @@
 from .errors import fresh_exc  # noqa: F401
 from .profiling import (
+    compile_cache_dir,
     device_memory_stats,
     device_trace,
     enable_compile_cache,
     timed,
-    wait_device_warm,
-    warm_device_transfer,
 )
 
 __all__ = [
+    "compile_cache_dir",
     "device_memory_stats",
     "device_trace",
     "enable_compile_cache",
     "timed",
-    "wait_device_warm",
-    "warm_device_transfer",
 ]
